@@ -1,11 +1,11 @@
-"""HAConvDR-TPU: a TPU-native conversational dense-retrieval framework.
+"""HAConvDR: a conversational dense-retrieval framework in JAX.
 
 A ground-up JAX/XLA/Pallas rebuild of the capabilities of the HAConvDR
 research pipeline (history-aware conversational dense retrieval, ACL 2024
 Findings): conversational datasets -> pseudo relevance judgments (PRJ) over
 history -> BM25 + history hard negatives -> contrastive fine-tuning of an
 ANCE (RoBERTa-base) query encoder against a frozen passage encoder ->
-corpus embedding over a TPU mesh -> exact blocked inner-product top-k
+corpus embedding over a device mesh -> exact blocked inner-product top-k
 search with on-device merge -> TREC output + IR metrics.
 
 Layers (mirrors reference layer map, see SURVEY.md SS1):

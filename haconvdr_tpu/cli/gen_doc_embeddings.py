@@ -1,12 +1,12 @@
 """CLI: encode the tokenized collection into embedding blocks
-(reference gen_doc_embeddings.py), streaming through the TPU mesh.
+(reference gen_doc_embeddings.py), streaming through the device mesh.
 
 Usage: python -m haconvdr_tpu.cli.gen_doc_embeddings --config cfg.toml
        [shard_stride=N shard_offset=i start_block_id=B]
 
 Multi-host / resumable runs: shard the corpus rank-mod with
 ``shard_stride``/``shard_offset`` (each host writes its own block-id range
-via ``start_block_id``) — the TPU analog of the reference's rank-mod
+via ``start_block_id``) — the analog of the reference's rank-mod
 StreamingDataset + restart-after-crash skip (src/utils.py:133-147,
 gen_doc_embeddings.py:98-100).
 """
@@ -47,7 +47,7 @@ def main(argv=None):
     mesh = make_mesh()
     n_dev = mesh.devices.size
     if cfg.index.compute_int8:
-        # int8 x int8 MXU inference (config.IndexConfig.compute_int8)
+        # int8 x int8 inference (config.IndexConfig.compute_int8)
         from haconvdr_tpu.models.encoder import quantize_encoder_params
 
         params = quantize_encoder_params(params)

@@ -1,6 +1,6 @@
 """CLI: IVF recall validation on REAL ENCODER geometry (no external data).
 
-The standing gap (VERDICT r2, NOTES.md): the IVF serving index's recall
+The standing gap (NOTES.md): the IVF serving index's recall
 was only ever measured on synthetic Gaussian mixtures, whose geometry is
 far friendlier to k-means than actual transformer-encoder output
 manifolds (anisotropic, low effective rank, cone-shaped — the known hard
@@ -141,9 +141,6 @@ def train_encoder(key, cfg, steps, batch, q_len, p_len, n_topics, lr=1e-4,
     xent = optax.softmax_cross_entropy_with_integer_labels
 
     def loss_fn(params, qids, qmask, pids, pmask, topics, w_contrast):
-        # trainable=True: grads flow through BOTH towers here, so route
-        # attention to the differentiable flash kernel (the inference
-        # fused kernel is only grad-safe under zero tangents)
         # Masked-mean pooling (the reference's own ANCE option,
         # src/models.py:52-61): at RANDOM init a linear probe on
         # mean-pooled 12L features hits 0.99 held-out topic accuracy vs
@@ -151,10 +148,8 @@ def train_encoder(key, cfg, steps, batch, q_len, p_len, n_topics, lr=1e-4,
         # random layers is linearly inaccessible, so CLS-pooled training
         # never gets traction (measured: loss pinned at chance for both
         # the contrastive and the cls objective, all lrs).
-        q = encode(params["enc"], cfg, qids, qmask, use_mean=True,
-                   trainable=True)
-        p = encode(params["enc"], cfg, pids, pmask, use_mean=True,
-                   trainable=True)
+        q = encode(params["enc"], cfg, qids, qmask, use_mean=True)
+        p = encode(params["enc"], cfg, pids, pmask, use_mean=True)
         # Batch-center before BOTH losses: at init only ~0.3% of the
         # embedding variance is input-dependent (LN shells make the
         # common mode unit-scale), and the first few Adam steps perturb
@@ -295,8 +290,7 @@ def main(argv=None):
     remat_arg = args.get("remat", "mlp")
     cfg = ModelConfig(
         dtype=args.get("dtype", "bfloat16"),
-        # backward at B x 192 needs remat on a 16 GB chip (the full-size
-        # [12, B, L, 768] layer stacks OOM the jvp otherwise)
+        # remat bounds the backward's saved [12, B, L, 768] layer stacks
         remat={"0": False, "1": True}.get(remat_arg, remat_arg),
         num_hidden_layers=int(args.get("layers", "12")),
         hidden_size=int(args.get("hidden", "768")),

@@ -16,8 +16,7 @@ batch latency.
 
 With no queries=..., a held-out strided sample of the corpus itself is
 used (self-retrieval recall — still distribution-faithful).  Exact
-ground truth comes from the same fused search path the flat index uses,
-so recall numbers compose with BASELINE.md's exact-search figures.
+ground truth comes from the same exact search the flat index uses.
 """
 
 from __future__ import annotations

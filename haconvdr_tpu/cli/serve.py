@@ -10,13 +10,13 @@ Usage: python -m haconvdr_tpu.cli.serve --config cfg.toml
        [serve.port=8080 serve.store_dtype=int8 serve.ivf=true
         search.rescore_oversample=5 ...]
 
-Deployment tiers (measured, BASELINE.md):
-  quality/throughput: serve.store_dtype=bfloat16 (lossless scores),
-      flat resident — coalesced batches ride the MXU-saturated scan
-  latency:  serve.ivf=true — ~1 ms single-query at nprobe-tuned recall
+Deployment tiers (their speed on the card: PERF.md):
+  quality/throughput: serve.store_dtype=bfloat16, flat resident —
+      coalesced batches share one scan of the index
+  latency:  serve.ivf=true — single queries at nprobe-tuned recall
   capacity: serve.ivf=true serve.store_dtype=int8
-      search.rescore_oversample=5 — int8 HBM cost, exact-quality results
-      via the two-stage host rescore
+      search.rescore_oversample=5 — int8 memory cost, exact-quality
+      results via the two-stage host rescore
 """
 
 import logging

@@ -57,10 +57,9 @@ def main(argv=None):
     tokenizer, encoder = load_model(
         cfg.model.model_type + "_Query", cfg.model.pretrained_encoder_path
     )
-    remat, use_flash = cfg.model.remat, cfg.model.use_flash_attention
+    remat = cfg.model.remat
     cfg.model = encoder.cfg
     cfg.model.remat = remat
-    cfg.model.use_flash_attention = use_flash
     from haconvdr_tpu.models.encoder import stack_layer_params, unstack_layer_params
 
     # stacked layer layout: the train step compiles one scanned layer

@@ -92,40 +92,15 @@ class ModelConfig:
     embedding_dim: int = 768  # output of the ANCE head
     hidden_dropout_prob: float = 0.1
     attention_probs_dropout_prob: float = 0.1
-    # compute dtype for matmuls on TPU; params stay f32
+    # matmul compute dtype; params stay f32.  float32 runs at full fp32
+    # precision (ops/backend.matmul_precision), bfloat16 is the fast mode
     dtype: str = "float32"
-    # fused Pallas flash attention (TPU): the [B, L, 3H] fused-QKV kernel
-    # avoids materializing the [B, H, L, L] score tensor AND the
-    # head-split transposes (together the majority of 384/512-token encode
-    # time).  Default ON: it gates itself off-TPU, under attention-probs
-    # dropout, and at unsupported shapes (exact XLA attention fallback).
-    use_flash_attention: bool = True
-    # fused residual+LayerNorm+int8-quant Pallas kernel (TPU, int8
-    # inference towers only): each LN output and its dynamic per-token
-    # int8 quantization (the next int8 dense's input) in one HBM pass —
-    # the LN passes + quantize passes are the measured non-matmul tail of
-    # the corpus-encode step (probes/probe_encode_bisect_int8.py).  Gates
-    # itself off-TPU, on trainable/dropout/bf16-weight towers (no custom
-    # VJP; plain LN-only fusion measured neutral, NOTES.md round 4), and
-    # at unsupported shapes.
-    use_fused_ln: bool = True
-    # fully-fused int8 MLP-block kernel (ops/fused_mlp.py): dense -> gelu
-    # -> quant -> dense -> residual -> LN -> quant with both weight
-    # matrices VMEM-resident; the [B*L, intermediate] tensor never
-    # touches HBM.  Same gates as use_fused_ln (requires it).
-    use_fused_mlp: bool = True
     # rematerialization in the backward pass (jax.checkpoint):
-    #   True  — checkpoint each transformer layer: trades ~30% recompute
-    #           for dropping the O(B H L^2) saved attention probs; needed
-    #           to fit batch-64 x 512-token training on one 16 GB chip
-    #           when the XLA attention path is in use.
-    #   "mlp" — checkpoint only the MLP block: with the flash-VJP
-    #           attention kernel (ops/flash_attention.py) nothing
-    #           [L, L]-shaped is saved anyway, so this drops just the
-    #           [B, L, 4H] MLP intermediates (2.25 GB/layer at reference
-    #           geometry) and re-runs only two dense matmuls — the fastest
-    #           fitting configuration.
-    #   False — save everything (small models / ample HBM).
+    #   True  — checkpoint each transformer layer: recompute the layer
+    #           forward instead of saving the O(B H L^2) attention probs
+    #   "mlp" — checkpoint only the MLP block: drops the [B, L, 4H] MLP
+    #           intermediates and re-runs only two dense matmuls
+    #   False — save everything
     remat: "bool | str" = False
 
     @classmethod
@@ -161,11 +136,10 @@ class TrainConfig:
     is_pseudo_prepos: bool = False
     is_prepos_neg: bool = True
     # compute dtype for the FROZEN passage towers only ("" = model dtype).
-    # They carry no gradients (stop_gradient), so "bfloat16" routes them
-    # through the fused inference attention kernel + bf16 carry — the same
-    # optimization that took corpus encode 0.40->0.74 Mtok/s — while the
-    # trained query tower keeps full-precision grads.  Set "" for bitwise
-    # loss parity with the all-f32 reference semantics.
+    # They carry no gradients (stop_gradient), so "bfloat16" (or "int8"
+    # weights) speeds them up while the trained query tower keeps
+    # full-precision grads.  Set "" for bitwise loss parity with the
+    # all-f32 reference semantics.
     frozen_dtype: str = ""
     model_output_path: str = "output/model"
     seed: int = 42
@@ -181,15 +155,16 @@ class IndexConfig:
     per_device_eval_batch_size: int = 256
     num_tokenize_workers: int = 8
     per_block_passage_num: int = 2_500_000
-    # embedding storage dtype: float32 | bfloat16 (halves HBM per passage)
-    # | int8 (quarters it; per-block scalar quantization, index/quantize.py)
+    # embedding storage dtype: float32 | bfloat16 (halves the bytes per
+    # passage) | int8 (quarters them; per-block scalar quantization,
+    # index/quantize.py)
     store_dtype: str = "float32"
     # int8-quantize the encoder's dense kernels for corpus encoding
     # (models/encoder.py:quantize_encoder_params): the six dense matmuls
-    # per layer run the MXU in int8 x int8 at 2x the bf16 rate with
-    # dynamic per-token activation quantization; embeddings/LN/head stay
-    # f32.  Inference-only approximation — embedding quality shifts
-    # slightly (validate with cli.ivf_sweep recall curves on real data).
+    # per layer run int8 x int8 with dynamic per-token activation
+    # quantization; embeddings/LN/head stay f32.  Inference-only
+    # approximation — embedding quality shifts slightly (validate with
+    # cli.ivf_sweep recall curves on real data).
     compute_int8: bool = False
 
 
@@ -207,25 +182,23 @@ class SearchConfig:
     trec_gold_qrel_file_path: str = ""
     query_chunk: int = 256  # queries per search dispatch
     passage_chunk: int = 131072  # passage tile per scan step
-    use_pallas: bool = True
     # >0: streaming searches accumulate incoming blocks into one
     # device-resident [superblock_rows, D] buffer and search each filled
     # buffer once at resident speed (ops/topk.py BlockSearcher
-    # superblock_rows; pick as large as HBM allows, 2048-multiple on the
-    # pallas path).  0 keeps the per-block seeded-ramp strategy.
+    # superblock_rows; as large as device memory allows, a multiple of
+    # passage_chunk).  0 searches block by block.
     superblock_rows: int = 0
     # "int8": the super-block accumulator itself stays int8 — 4x the rows
-    # per fill AND the filled buffer searches through v4's int8 x int8
-    # MXU mode; incoming blocks requantize to the store's global_scale()
+    # per fill, searched as an int8 index; incoming blocks requantize to
+    # the store's global_scale()
     # (derived automatically when all blocks are int8).  "" = accumulate
     # in the float compute dtype (int8 blocks dequantized on insert).
     superblock_dtype: str = ""
     # >1: two-stage serving — the (typically int8-resident) first stage
     # retrieves ceil(top_k * rescore_oversample) candidates and the exact
     # rows are re-scored from the FLOAT disk store on the host
-    # (index/rescore.py).  Restores exact recall at int8 HBM cost: on the
-    # real-geometry matrix the true top-100 is 100% inside the int8
-    # top-500 (oversample 5).  0/1 = off.
+    # (index/rescore.py).  Restores exact recall at int8 memory cost.
+    # 0/1 = off.
     rescore_oversample: float = 0.0
 
 
@@ -259,21 +232,19 @@ class ServeConfig:
     queue_depth: int = 1024
     request_timeout_s: float = 30.0
     # index residency (serve.Retriever): resident=True loads the store
-    # into device HBM; ivf=True builds/loads the cluster-pruned index —
-    # the LATENCY tier (single-query ~1 ms vs ~4-6 ms flat at 2.5M); keep
-    # ivf=False for the THROUGHPUT tier (the flat scan's matmul amortizes
-    # the corpus stream across a coalesced batch, IVF's per-query bucket
-    # gathers do not — see BASELINE.md's batched-IVF crossover row)
+    # into device memory; ivf=True builds/loads the cluster-pruned index
+    # for single-query latency; keep ivf=False for batched throughput
+    # (the flat scan's matmul amortizes the corpus stream across a
+    # coalesced batch, IVF's per-query bucket gathers do not)
     resident: bool = True
     ivf: bool = False
     ivf_nlist: int = 1024
     ivf_nprobe: int = -1  # -1: library default
     ivf_dir: str = ""  # persist/reload the built IVF index
     store_dtype: str = "float32"  # residency dtype: float32|bfloat16|int8
-    # int8-weight query tower (serve.Retriever(encoder_int8=True)): the
-    # batched-tier knob — ~1.2x faster encode at batch >= 8 (measured
-    # e2e-batch 1,254 -> 1,514 QPS), ~0.4 ms SLOWER at B=1; quality
-    # drift is cos > 0.9999 per query (probes/probe_tower_int8_recall.py)
+    # int8-weight query tower (serve.Retriever(encoder_int8=True)), an
+    # approximation of the float tower; its speed on the card is not
+    # measured
     encoder_int8: bool = False
     checkpoint_path: str = ""  # trained query-encoder checkpoint
     embeddings_dir: str = ""  # EmbeddingBlockStore directory

@@ -1,7 +1,7 @@
 """Batching utilities: python example dicts -> fixed-shape numpy batches.
 
 Replaces the reference's DataLoader + per-dataset collate_fns
-(src/data.py:343-379 etc.).  TPU-first differences:
+(src/data.py:343-379 etc.).  Differences:
   * every batch has the SAME static shape — the ragged final batch is
     padded up to ``batch_size`` and flagged via ``valid`` (jit compiles
     once, no shape-polymorphic recompiles);

@@ -1,6 +1,6 @@
 """Offline corpus indexing: tokenize + encode pipelines.
 
-TPU-first rebuild of gen_tokenized_doc.py / gen_doc_embeddings.py:
+Rebuild of gen_tokenized_doc.py / gen_doc_embeddings.py:
 
   * :func:`tokenize_collection` — stream the raw collection (TSV/JSONL)
     through the host tokenizer into a TokenizedCorpus, optionally with a
@@ -10,7 +10,7 @@ TPU-first rebuild of gen_tokenized_doc.py / gen_doc_embeddings.py:
     jit-compiled, mesh-sharded passage encoder in fixed-shape batches and
     write embedding blocks of ``per_block_passage_num`` passages
     (gen_doc_embeddings.py:65-158).  Multi-host runs shard the stream
-    rank-mod (``stride``/``offset``), the TPU analog of StreamingDataset
+    rank-mod (``stride``/``offset``), the analog of StreamingDataset
     (src/utils.py:133-147).
 """
 

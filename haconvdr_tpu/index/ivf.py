@@ -1,16 +1,15 @@
-"""TPU-native IVF (inverted-file) index for low-latency online serving.
+"""IVF (inverted-file) index for low-latency online serving.
 
 Beyond the reference: HAConvDR serves every query by scanning the whole
 block set with faiss ``IndexFlatIP`` (src/test_HAConvDR_topiocqa.py:74-162).
-Exact scan is the right call for batch evaluation on TPU (the fused kernel
-amortizes one HBM stream over thousands of queries — see ops/pallas_topk),
-but a SINGLE online query still pays the full index read (~6.7 ms for a
-2.5M bf16 block).  This module trades a little recall for reading only the
+Exact scan is the right call for batch evaluation (one read of the index
+is amortized over thousands of queries — see ops/topk.py), but a SINGLE
+online query still pays the full index read.  This module trades a little recall for reading only the
 probed clusters: spherical k-means centroids + equal-capacity cluster
 buckets, searched by gathering the top-``nprobe`` buckets per query and
 running the exact top-k inside them.
 
-TPU-first design decisions:
+Design decisions:
   * **Equal-capacity buckets, one dense [nlist, capacity, D] array.**
     Variable-length inverted lists are hostile to XLA (dynamic shapes);
     instead every cluster gets the same padded capacity and rows that
@@ -104,7 +103,7 @@ class IVFIndex(NamedTuple):
 
 def quantize_ivf(index: IVFIndex, by_residual: bool = True) -> IVFIndex:
     """int8-quantize an IVF index in place on device.  Quarters the
-    bucket HBM vs f32, halves it vs bf16.
+    bucket bytes vs f32, halves them vs bf16.
 
     ``by_residual=True`` (default, the faiss IVF-SQ ``by_residual``
     analog): buckets store int8 codes of ``row - mean(cluster)`` and the
@@ -392,9 +391,8 @@ def _ivf_search_one(
     cm = None if means is None else means @ qf  # [nlist]
     tail_corr = jnp.float32(0.0) if mu is None else mu @ qf
 
-    # loop the probed buckets with dynamic slices: an XLA gather of the
-    # same rows runs ~15x slower on TPU (measured 16 ms vs ~1 ms at
-    # nprobe=64 x 800 x 768), and scoring in the store dtype with f32
+    # loop the probed buckets with dynamic slices (whole-bucket reads
+    # instead of a row gather); scoring in the store dtype with f32
     # accumulation avoids materializing an f32 copy of the panel
     def per_probe(p):
         b = jax.lax.dynamic_index_in_dim(buckets, p, axis=0, keepdims=False)

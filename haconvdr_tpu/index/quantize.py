@@ -3,8 +3,7 @@
 A beyond-the-reference memory lever: the reference serves flat f32 blocks
 (7.3 GB per 2.5M x 768 block, src/test_HAConvDR_topiocqa.py:82-95) and its
 54M-passage QReCC corpus is 167 GB f32 / 83 GB bf16 — this module stores
-the index as int8 + per-dimension float32 scales (42 GB at 54M), so the
-whole corpus fits HBM-resident on a v5e-4 instead of a v5e-8.
+the index as int8 + per-dimension float32 scales (42 GB at 54M).
 
 Scheme: per-dimension symmetric (faiss ``ScalarQuantizer QT_8bit``-style,
 but zero-offset so the scale FOLDS INTO THE QUERY):
@@ -13,21 +12,19 @@ but zero-offset so the scale FOLDS INTO THE QUERY):
     score(q, x) = sum_d q[d] * (x_int8[d] * scale[d])
                 = sum_d (q[d] * scale[d]) * x_int8[d]
 
-so search over an int8 index scores the dequantized embeddings directly:
-fold ``q' = q * scale`` once per (query batch, scale group) and run the
-ordinary kernels with int8 passage tiles upcast to bfloat16 on the fly.
-The int8 side of the product is exact (|v| <= 127 is bf16-representable);
-the folded query is rounded to bfloat16 at the matmul — the same
-query-side rounding the bfloat16 index path applies — so scores equal the
-exact inner product of the dequantized rows with the bf16-rounded folded
-query (query-side rounding ~2^-9 relative).  The matmul is not the
-bottleneck — selection is; the win is HBM *capacity* and H2D/stream
-*bandwidth*, both halved vs bf16.
+Search folds ``q' = q * scale`` once per (query batch, scale group), then
+quantises each folded query to symmetric int8 (ops/topk.quantize_queries)
+and scores int8 x int8 in int32: every score is an exact integer
+(768 * 127^2 < 2^24, so also exact in f32) times the query's scale / 127.
+Query-side rounding is ~1/254 relative, below the index's own int8 error.
+The win is memory *capacity* and host-to-device *bandwidth*, both halved
+vs bf16.
 
 Scales may be grouped per shard / per block (each group quantized with its
 own [D] scale): folding happens inside the shard_map / per-block dispatch,
-which keeps cross-group score comparisons consistent because every score
-is the exact inner product against that group's dequantized rows.
+which keeps cross-group score comparisons consistent: every score is the
+exact integer product of that group's codes, scaled back to the
+dequantized rows' units.
 """
 
 from __future__ import annotations

@@ -11,7 +11,7 @@ is two-stage serving: scan the int8-resident index for an OVERSAMPLED
 candidate set, then exactly rescore just those rows from the float
 block store on the host.  Measured on the same matrix: the true top-100
 is 99.9% contained in the int8 top-300 and 100% in the top-500, so a
-3-5x oversample restores exact quality at int8 HBM cost.
+3-5x oversample restores exact quality at int8 memory cost.
 
 The rescore gather reads ``Q * m`` rows from the mmap'd store (~1.5 MB
 per query at m=500, bf16) and the rerank matmul is ``Q x m x D`` — host
@@ -19,8 +19,7 @@ work, microseconds; no device round-trip.
 
 Reference scope: beyond the reference (faiss-gpu serves f32 flat only,
 src/test_HAConvDR_topiocqa.py:74-162).  The scheme is the IVF-SQ +
-refine ("RFlat") pattern from the faiss family, built TPU-first: the
-accelerator does the bandwidth-bound coarse scan, the host does the
+refine ("RFlat") pattern from the faiss family: the accelerator does the bandwidth-bound coarse scan, the host does the
 latency-trivial exact fix-up.
 """
 
@@ -54,7 +53,7 @@ class StoreRescorer:
                 raise ValueError(
                     "StoreRescorer needs a float block store (the disk copy "
                     f"should stay bf16/f32; block {b} is int8 — int8 belongs "
-                    "in HBM, not in the rescore source)"
+                    "on the device, not in the rescore source)"
                 )
             self._blocks.append(emb)
             ids = np.asarray(ids, np.int64)

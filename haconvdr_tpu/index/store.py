@@ -109,7 +109,7 @@ class TokenizedCorpus:
         stride: int = 1, offset: int = 0,
     ) -> Iterator[Tuple[np.ndarray, np.ndarray, np.ndarray]]:
         """Yield (offsets, token_ids [B,L], mask [B,L]).  ``stride/offset``
-        give rank-mod sharding for multi-host encoding, the TPU analog of
+        give rank-mod sharding for multi-host encoding, the analog of
         StreamingDataset's rank-mod split (src/utils.py:133-147)."""
         stop = self.total_number if stop is None else stop
         idx_all = np.arange(start + offset, stop, stride)

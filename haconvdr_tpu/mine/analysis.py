@@ -2,7 +2,7 @@
 
 pyserini's default Anserini analyzer is Lucene's English analysis chain:
 lowercase tokenization, English stopword removal, Porter stemming.  This
-module reproduces that chain host-side (tokenization never runs on TPU).
+module reproduces that chain host-side (tokenization never runs on the accelerator).
 The Porter stemmer below is implemented from the published algorithm
 (Porter, 1980), not ported from any particular codebase.
 """

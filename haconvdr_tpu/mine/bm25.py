@@ -16,10 +16,13 @@ tf-part = tf / (tf + k1 (1 - b + b dl/avgdl)).
 from __future__ import annotations
 
 import ctypes
+import hashlib
 import json
 import logging
 import os
+import platform
 import subprocess
+import tempfile
 from typing import Dict, Iterable, List, Optional, Sequence, Tuple
 
 import numpy as np
@@ -28,24 +31,47 @@ from haconvdr_tpu.mine.analysis import analyze
 
 logger = logging.getLogger(__name__)
 
-_NATIVE_DIR = os.path.join(os.path.dirname(os.path.dirname(os.path.dirname(__file__))), "native")
-_SO_PATH = os.path.join(_NATIVE_DIR, "libbm25.so")
-_SRC_PATH = os.path.join(_NATIVE_DIR, "bm25.cpp")
+_CHECKOUT = os.path.dirname(os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
+_SRC_PATH = os.path.join(_CHECKOUT, "native", "bm25.cpp")
+_BUILD_DIR = os.path.join(_CHECKOUT, "build")
+_CXX_FLAGS = ["-O3", "-march=native", "-shared", "-fPIC", "-std=c++17"]
+
+
+def _so_path() -> str:
+    """The library for this source on this host: ``-march=native`` code is
+    only valid on the CPU it was built for, so a library copied from
+    another machine (or built from another source) is never reused."""
+    h = hashlib.sha256()
+    with open(_SRC_PATH, "rb") as f:
+        h.update(f.read())
+    h.update(" ".join(_CXX_FLAGS).encode())
+    h.update(" ".join(platform.uname()).encode())
+    return os.path.join(_BUILD_DIR, f"libbm25-{h.hexdigest()[:16]}.so")
 
 
 def _build_native() -> Optional[str]:
-    if os.path.exists(_SO_PATH) and os.path.getmtime(_SO_PATH) >= os.path.getmtime(_SRC_PATH):
-        return _SO_PATH
     if not os.path.exists(_SRC_PATH):
         return None
+    so = _so_path()
+    if os.path.exists(so):
+        return so
     try:
-        subprocess.run(
-            ["g++", "-O3", "-march=native", "-shared", "-fPIC", "-std=c++17",
-             "-o", _SO_PATH, _SRC_PATH, "-lpthread"],
-            check=True, capture_output=True,
-        )
-        return _SO_PATH
-    except Exception as e:  # pragma: no cover - toolchain missing
+        os.makedirs(_BUILD_DIR, exist_ok=True)
+        # build under a private name, then rename: concurrent builders
+        # (test workers) never load a half-written library
+        fd, tmp = tempfile.mkstemp(suffix=".so", dir=_BUILD_DIR)
+        os.close(fd)
+        try:
+            subprocess.run(
+                ["g++", *_CXX_FLAGS, "-o", tmp, _SRC_PATH, "-lpthread"],
+                check=True, capture_output=True,
+            )
+            os.replace(tmp, so)
+        finally:
+            if os.path.exists(tmp):
+                os.remove(tmp)
+        return so
+    except (OSError, subprocess.CalledProcessError) as e:  # toolchain missing
         logger.warning("native bm25 build failed (%s); using numpy fallback", e)
         return None
 

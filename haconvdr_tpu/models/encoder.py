@@ -1,4 +1,4 @@
-"""ANCE dual encoder, TPU-first.
+"""ANCE dual encoder.
 
 Functional JAX re-design of the reference ANCE/BERT dual-encoder models
 (/root/reference/src/models.py:20-110): a RoBERTa-base (or BERT) transformer
@@ -12,9 +12,9 @@ Design choices (deliberately not a torch translation):
     jax.sharding.NamedSharding, checkpointable with orbax, and convertible
     from HF torch checkpoints (see models/hf_import.py);
   * the whole forward is one jit-compilable pure function with static
-    shapes; attention uses a single fused additive mask;
-  * matmul compute dtype is configurable (bfloat16 on TPU MXU), parameters
-    and LayerNorm statistics stay float32.
+    shapes; attention takes the padding mask once per layer;
+  * matmul compute dtype is configurable (float32 at full fp32 precision,
+    or bfloat16), parameters and LayerNorm statistics stay float32.
 """
 
 from __future__ import annotations
@@ -27,6 +27,7 @@ import jax.numpy as jnp
 import numpy as np
 
 from haconvdr_tpu.config import ModelConfig
+from haconvdr_tpu.ops import backend
 
 EncoderParams = Dict[str, Any]
 
@@ -107,39 +108,31 @@ def _layer_norm(
 
 
 def _acc_dtype(dtype):
-    # accumulate in f32 on the MXU; promote to f64 only for parity testing
+    # accumulate in f32; promote to f64 only for parity testing
     return jnp.promote_types(dtype, jnp.float32)
 
 
-def _dense(
-    x: jax.Array, p: Dict[str, jax.Array], dtype, out_dtype=None, prequant=None
-) -> jax.Array:
+def _dense(x: jax.Array, p: Dict[str, jax.Array], dtype, out_dtype=None) -> jax.Array:
     k = p["kernel"]
     if k.dtype == jnp.int8:
-        # int8 x int8 MXU dense (quantize_encoder_params): weights are
+        # int8 x int8 dense (quantize_encoder_params): weights are
         # per-output-channel symmetric int8; activations are quantized
-        # per-token symmetric HERE (dynamic — one abs-max pass, then the
-        # matmul runs the MXU at 2x the bf16 rate with exact int32
-        # accumulation; |dot| <= 3072*127^2 = 49.5M << 2^31, and the
-        # int32 -> f32 cast error is <= 2^-24 relative).  Dequant =
-        # act_scale/127 x w_scale per (row, out-channel).  ``prequant``
-        # = (xq int8, xs f32[..., 1]) skips the quantize: the producing
-        # fused LN kernel (ops/fused_ln.fused_residual_ln_quant) already
-        # emitted it in the same HBM pass that wrote x.
-        if prequant is not None:
-            xq, xs = prequant
-        else:
-            xf = x.astype(jnp.float32)
-            xs = jnp.maximum(
-                jnp.max(jnp.abs(xf), axis=-1, keepdims=True), 1e-30
-            )
-            xq = jnp.clip(jnp.round(xf / xs * 127.0), -127, 127).astype(jnp.int8)
+        # per-token symmetric HERE (dynamic — one abs-max pass, then an
+        # int8 matmul with exact int32 accumulation; |dot| <= 3072*127^2 =
+        # 49.5M << 2^31, and the int32 -> f32 cast error is <= 2^-24
+        # relative).  Dequant = act_scale/127 x w_scale per (row,
+        # out-channel).
+        xf = x.astype(jnp.float32)
+        xs = jnp.maximum(jnp.max(jnp.abs(xf), axis=-1, keepdims=True), 1e-30)
+        xq = jnp.clip(jnp.round(xf / xs * 127.0), -127, 127).astype(jnp.int8)
         y = jnp.dot(xq, k, preferred_element_type=jnp.int32)
         y = y.astype(jnp.float32) * (xs / 127.0) * p["kernel_scale"]
         y = y + p["bias"]
         return y.astype(out_dtype) if out_dtype is not None else y
     y = jnp.dot(
-        x.astype(dtype), k.astype(dtype), preferred_element_type=_acc_dtype(dtype)
+        x.astype(dtype), k.astype(dtype),
+        precision=backend.matmul_precision(dtype),
+        preferred_element_type=_acc_dtype(dtype),
     )
     y = y + p["bias"]
     return y if out_dtype is None else y.astype(out_dtype)
@@ -148,9 +141,8 @@ def _dense(
 def _gelu(x: jax.Array, dtype) -> jax.Array:
     """HF 'gelu' is the exact erf form.  Under bfloat16 compute the tanh
     approximation's error (<~3e-3 absolute) is below bf16 rounding of the
-    surrounding activations, and the erf polynomial is ~17% of the whole
-    encoder's wall-clock — so bf16 uses tanh, f32/f64 keep erf for golden
-    parity (tests/test_encoder.py)."""
+    surrounding activations, so bf16 uses the cheaper tanh form; f32/f64
+    keep erf for golden parity (tests/test_encoder.py)."""
     return jax.nn.gelu(x, approximate=jnp.dtype(dtype) == jnp.bfloat16)
 
 
@@ -166,16 +158,14 @@ def roberta_position_ids(input_ids: jax.Array, pad_token_id: int) -> jax.Array:
 def _dropout(x, rate, rng):
     """Inverted dropout; no-op when rng is None (inference/frozen towers).
 
-    The mask comes from the TPU's hardware RNG (XLA RngBitGenerator via
-    the ``rbg`` PRNG impl) with a uint16 threshold compare, NOT
-    ``jax.random.bernoulli``: threefry generates one 32-bit counter-mode
-    block per f32 element on the VPU, which measured 215 ms/step of the
-    reference-geometry train step for the [B,H,512,512]x12 attention-probs
-    masks alone (regenerated under remat; .bisect results in NOTES.md).
-    rbg measured 4.8x faster (100.7 -> 20.9 ms per 12-layer mask pass).
-    Deterministic per key on a fixed backend — dropout keys are derived
-    per layer from the train-state threefry key as before; only the BULK
-    bits use rbg.  Threshold quantization bias <= 1/65536 keep-rate."""
+    The mask bits come from XLA's RngBitGenerator (the ``rbg`` PRNG impl)
+    with a uint16 threshold compare, NOT ``jax.random.bernoulli``:
+    threefry computes one 32-bit counter-mode block per element, which is
+    several times the work for the [B, H, L, L] attention-probs masks of
+    every layer (regenerated under remat).  Deterministic per key on a
+    fixed backend — dropout keys are derived per layer from the
+    train-state threefry key; only the BULK bits use rbg.  Threshold
+    quantization bias <= 1/65536 keep-rate."""
     if rng is None or rate <= 0.0:
         return x
     keep = 1.0 - rate
@@ -192,10 +182,41 @@ def _dropout(x, rate, rng):
     return jnp.where(bits < thresh, x / keep, jnp.zeros((), x.dtype))
 
 
-def _attention(
-    x, mask_bias, p, num_heads, dtype, attn_drop=0.0, rng=None,
-    use_flash=False, attention_mask=None, trainable=False, x_prequant=None,
-):
+def dot_product_attention(
+    qkv: jax.Array,  # [B, L, 3H]: the fused q|k|v projection
+    attention_mask: jax.Array,  # [B, L], 1 = token, 0 = right padding
+    num_heads: int,
+    dtype,
+    implementation: str,
+) -> jax.Array:
+    """Multi-head attention context [B, L, H] through
+    ``jax.nn.dot_product_attention``.
+
+    The head split is a free reshape of [B, L, 3H] to [B, L, 3, heads, d].
+    ``implementation="cudnn"`` is cuDNN's fused attention (bf16/fp16
+    only); it takes the padding as per-row key lengths, so the mask must
+    be right padding, as every builder in data/ and index/ produces.
+    ``"xla"`` takes the mask itself and runs f32 at HIGHEST."""
+    B, L, H3 = qkv.shape
+    H = H3 // 3
+    t = qkv.astype(dtype).reshape(B, L, 3, num_heads, H // num_heads)
+    q, k, v = t[:, :, 0], t[:, :, 1], t[:, :, 2]
+    if implementation == "cudnn":
+        lengths = jnp.sum(attention_mask, axis=1).astype(jnp.int32)
+        ctx = jax.nn.dot_product_attention(
+            q, k, v, key_value_seq_lengths=lengths, implementation="cudnn"
+        )
+    else:
+        mask = attention_mask.astype(bool)[:, None, None, :]
+        highest = backend.matmul_precision(dtype) == jax.lax.Precision.HIGHEST
+        with jax.default_matmul_precision("highest" if highest else None):
+            ctx = jax.nn.dot_product_attention(
+                q, k, v, mask=mask, implementation="xla"
+            )
+    return ctx.reshape(B, L, H)
+
+
+def _attention(x, attention_mask, p, num_heads, dtype, attn_drop=0.0, rng=None):
     B, L, H = x.shape
     d = H // num_heads
 
@@ -219,47 +240,17 @@ def _attention(
                 p["value"]["kernel_scale"],
             ]
         )
-    qkv = _dense(x, qkv_p, dtype, out_dtype=dtype, prequant=x_prequant)
+    qkv = _dense(x, qkv_p, dtype, out_dtype=dtype)
 
-    from haconvdr_tpu.ops.fused_attention import fused_attention_supported
-
-    if (
-        use_flash
-        and not trainable
-        and rng is None
-        and attention_mask is not None
-        and fused_attention_supported(
-            L, d, num_heads=num_heads, itemsize=jnp.dtype(dtype).itemsize
+    if rng is None or attn_drop <= 0.0:
+        ctx = dot_product_attention(
+            qkv, attention_mask, num_heads, dtype,
+            backend.attention_impl(dtype),
         )
-    ):
-        # fused short-sequence attention kernel (ops/fused_attention.py):
-        # the [B, L, 3H] projection feeds the kernel directly — no
-        # head-split transposes or q/k/v slicing at the HBM level;
-        # QK^T -> bias -> softmax -> PV entirely in VMEM per batch row
-        from haconvdr_tpu.ops.fused_attention import fused_attention_qkv
-
-        ctx = fused_attention_qkv(qkv, attention_mask, num_heads)
         return _dense(ctx, p["output"], dtype)
 
-    if use_flash and trainable and attention_mask is not None:
-        # differentiable fused attention with in-kernel dropout
-        # (ops/flash_attention.py): custom-VJP forward+backward keep the
-        # [L, L] scores/probs/dropout masks in VMEM — the XLA path below
-        # materializes them in HBM three times per layer under remat
-        from haconvdr_tpu.ops.flash_attention import (
-            flash_attention,
-            flash_vjp_supported,
-        )
-
-        if flash_vjp_supported(
-            L, d, num_heads=num_heads, itemsize=jnp.dtype(dtype).itemsize
-        ):
-            ctx = flash_attention(
-                qkv, attention_mask, num_heads,
-                dropout_rng=rng, drop_rate=attn_drop,
-            )
-            return _dense(ctx, p["output"], dtype)
-
+    # attention-probs dropout (the trained tower): the plain XLA form,
+    # since no fused attention JAX exposes takes dropout
     def split_heads(t):
         return t.reshape(B, L, num_heads, d).transpose(0, 2, 1, 3)
 
@@ -267,14 +258,18 @@ def _attention(
     k = split_heads(qkv[..., H : 2 * H])
     v = split_heads(qkv[..., 2 * H :])
     acc = _acc_dtype(dtype)
+    prec = backend.matmul_precision(dtype)
+    mask_bias = (1.0 - attention_mask.astype(jnp.float32))[:, None, None, :] * -1e9
     scores = jnp.einsum(
-        "bhqd,bhkd->bhqk", q.astype(dtype), k.astype(dtype), preferred_element_type=acc
+        "bhqd,bhkd->bhqk", q.astype(dtype), k.astype(dtype),
+        precision=prec, preferred_element_type=acc,
     ) / math.sqrt(d)
     scores = scores + mask_bias  # [B, 1, 1, L] additive
     probs = jax.nn.softmax(scores, axis=-1)
     probs = _dropout(probs, attn_drop, rng)  # HF attention-probs dropout
     ctx = jnp.einsum(
-        "bhqk,bhkd->bhqd", probs.astype(dtype), v.astype(dtype), preferred_element_type=acc
+        "bhqk,bhkd->bhqd", probs.astype(dtype), v.astype(dtype),
+        precision=prec, preferred_element_type=acc,
     )
     ctx = ctx.transpose(0, 2, 1, 3).reshape(B, L, H)
     return _dense(ctx, p["output"], dtype)
@@ -286,18 +281,12 @@ def encoder_hidden_states(
     input_ids: jax.Array,
     attention_mask: jax.Array,
     dropout_rng: Optional[jax.Array] = None,
-    trainable: bool = False,
 ) -> jax.Array:
     """Transformer stack -> last_hidden_state [B, L, H].
 
     ``dropout_rng`` enables training-mode dropout with the reference's HF
     placements (embeddings post-LN, attention probs, both residual
-    branches); None = eval mode (the reference's frozen/no-grad towers).
-    ``trainable`` marks a tower that gradients flow through: it routes
-    attention to the differentiable flash kernel (custom VJP, dropout
-    fused in-kernel; ops/flash_attention.py) instead of the inference-only
-    fused kernel — rng presence alone cannot distinguish a dropout-free
-    trained tower from an inference pass."""
+    branches); None = eval mode (the reference's frozen/no-grad towers)."""
     dtype = jnp.dtype(cfg.dtype)
     hd, ad = cfg.hidden_dropout_prob, cfg.attention_probs_dropout_prob
     layers = params["layers"]
@@ -323,136 +312,39 @@ def encoder_hidden_states(
     # dtype=bf16); LN internals run f32 regardless
     carry_dtype = jnp.promote_types(dtype, jnp.bfloat16)
 
-    # fused residual+LN(+quant) kernel (ops/fused_ln.py).  Inference
-    # towers only (no custom VJP) — exactly the frozen/corpus path where
-    # the reference's gen_doc_embeddings hot loop spends its hours.  On
-    # int8 towers the kernel ALSO emits each LN output's dynamic per-token
-    # int8 quantization (its sole consumer is the next int8 dense), so the
-    # carry through the layer scan becomes (x, xq, xs) and the qkv/
-    # intermediate denses skip their abs-max + quantize passes — the
-    # measured non-matmul tail of the encode step
-    # (probes/probe_encode_bisect.py, probes/probe_fused_ln_tpu.py).
-    # Plain fused LN WITHOUT the quant tail measured neutral-to-negative
-    # (0.983x: the pallas_call fusion barrier gives back what the single
-    # HBM pass saves), so the kernel engages only when the quant fusion
-    # applies.
-    B, L = input_ids.shape
-    first_kernel = (
-        layers["attention"]["query"]["kernel"]
-        if stacked
-        else layers[0]["attention"]["query"]["kernel"]
-    )
-    use_fused_quant = (
-        getattr(cfg, "use_fused_ln", True)
-        and not trainable
-        and dropout_rng is None
-        and carry_dtype == jnp.bfloat16
-        and first_kernel.dtype == jnp.int8
-    )
-    if use_fused_quant:
-        from haconvdr_tpu.ops.fused_ln import fused_ln_supported
-
-        use_fused_quant = fused_ln_supported(
-            (B, L, cfg.hidden_size), cfg.hidden_size
-        )
-    # fully-fused int8 MLP block (ops/fused_mlp.py): both weight matrices
-    # VMEM-resident, the [B*L, intermediate] tensor never touches HBM —
-    # replaces intermediate dense + gelu + dynamic quant + output dense +
-    # the residual+LN+quant kernel for the whole mlp_fn
-    use_fused_mlp = use_fused_quant and getattr(cfg, "use_fused_mlp", True)
-    if use_fused_mlp:
-        from haconvdr_tpu.ops.fused_mlp import fused_mlp_supported
-
-        use_fused_mlp = fused_mlp_supported(
-            B * L, cfg.hidden_size, cfg.intermediate_size
-        )
-
     def _res_ln(x, branch_out, p):
-        """(LayerNorm(x + branch_out), prequant) in the carry dtype.  The
-        fused path casts the branch output to the carry dtype FIRST (XLA
-        folds that cast into the producing matmul's epilogue, halving the
-        kernel's residual read) — the same add-in-carry-dtype the unfused
-        ``x + out.astype(x.dtype)`` performs."""
-        if use_fused_quant:
-            from haconvdr_tpu.ops.fused_ln import fused_residual_ln_quant
-
-            y, yq, ys = fused_residual_ln_quant(
-                x, branch_out.astype(x.dtype), p["scale"], p["bias"],
-                eps=cfg.layer_norm_eps, out_dtype=carry_dtype,
-            )
-            return y, (yq, ys)
         return _layer_norm(
             x + branch_out.astype(x.dtype), p, cfg.layer_norm_eps,
             out_dtype=carry_dtype,
-        ), None
+        )
 
     x = (
         emb["word_embeddings"][input_ids]
         + emb["position_embeddings"][position_ids]
         + emb["token_type_embeddings"][jnp.zeros_like(input_ids)]
     )
-    if use_fused_quant:
-        from haconvdr_tpu.ops.fused_ln import fused_residual_ln_quant
-
-        x, eq, es = fused_residual_ln_quant(
-            x, None, emb["layer_norm"]["scale"], emb["layer_norm"]["bias"],
-            eps=cfg.layer_norm_eps, out_dtype=carry_dtype,
-        )
-        x_pq = (eq, es)
-    else:
-        x = _layer_norm(
-            x, emb["layer_norm"], cfg.layer_norm_eps, out_dtype=carry_dtype
-        )
-        x_pq = None
+    x = _layer_norm(x, emb["layer_norm"], cfg.layer_norm_eps, out_dtype=carry_dtype)
     x = _dropout(x, hd, emb_key)
 
-    mask_bias = (1.0 - attention_mask.astype(jnp.float32))[:, None, None, :] * -1e9
-
-    def mlp_fn(x, x_pq, layer, rng_c):
-        if use_fused_mlp:
-            from haconvdr_tpu.ops.fused_mlp import fused_mlp_block
-
-            y, yq, ys = fused_mlp_block(
-                x, x_pq[0], x_pq[1],
-                layer["intermediate"]["kernel"],
-                layer["intermediate"]["kernel_scale"],
-                layer["intermediate"]["bias"],
-                layer["output"]["kernel"],
-                layer["output"]["kernel_scale"],
-                layer["output"]["bias"],
-                layer["output_layer_norm"]["scale"],
-                layer["output_layer_norm"]["bias"],
-                eps=cfg.layer_norm_eps, out_dtype=carry_dtype,
-            )
-            return y, (yq, ys)
-        inter = _gelu(
-            _dense(x, layer["intermediate"], dtype, out_dtype=dtype, prequant=x_pq),
-            dtype,
-        )
+    def mlp_fn(x, layer, rng_c):
+        inter = _gelu(_dense(x, layer["intermediate"], dtype, out_dtype=dtype), dtype)
         out = _dropout(_dense(inter, layer["output"], dtype), hd, rng_c)
         return _res_ln(x, out, layer["output_layer_norm"])
 
     if cfg.remat == "mlp":
-        # MLP-only remat: with flash attention the attention backward
-        # already recomputes from its own inputs (custom-VJP residuals are
-        # the primals), so full-layer remat only buys back the [B, L, 4H]
-        # MLP intermediates at the price of recomputing the WHOLE layer
-        # forward.  Checkpointing just the MLP block drops those 2.25 GB/
-        # layer stacks (the remat-off OOM driver) while re-running only
-        # two dense matmuls in the backward.
+        # MLP-only remat: drops the [B, L, 4H] MLP intermediates and
+        # re-runs only two dense matmuls in the backward, instead of the
+        # whole layer forward
         mlp_fn = jax.checkpoint(mlp_fn)
 
-    def layer_fn(x, x_pq, layer, rng_a, rng_b, rng_c):
+    def layer_fn(x, layer, rng_a, rng_b, rng_c):
         attn_out = _attention(
-            x, mask_bias, layer["attention"], cfg.num_attention_heads, dtype,
-            attn_drop=ad, rng=rng_a,
-            use_flash=cfg.use_flash_attention,
-            attention_mask=attention_mask, trainable=trainable,
-            x_prequant=x_pq,
+            x, attention_mask, layer["attention"], cfg.num_attention_heads,
+            dtype, attn_drop=ad, rng=rng_a,
         )
         attn_out = _dropout(attn_out, hd, rng_b)
-        x, x_pq = _res_ln(x, attn_out, layer["attention"]["output_layer_norm"])
-        return mlp_fn(x, x_pq, layer, rng_c)
+        x = _res_ln(x, attn_out, layer["attention"]["output_layer_norm"])
+        return mlp_fn(x, layer, rng_c)
 
     if cfg.remat and cfg.remat != "mlp":
         layer_fn = jax.checkpoint(layer_fn)
@@ -463,26 +355,26 @@ def encoder_hidden_states(
         # programs for base-size training (see stack_layer_params)
         if layer_keys is not None:
 
-            def body(carry, xs):
+            def body(x, xs):
                 layer, lk = xs
-                return layer_fn(*carry, layer, lk[0], lk[1], lk[2]), None
+                return layer_fn(x, layer, lk[0], lk[1], lk[2]), None
 
-            (x, x_pq), _ = jax.lax.scan(body, (x, x_pq), (layers, layer_keys))
+            x, _ = jax.lax.scan(body, x, (layers, layer_keys))
         else:
 
-            def body(carry, layer):
-                return layer_fn(*carry, layer, None, None, None), None
+            def body(x, layer):
+                return layer_fn(x, layer, None, None, None), None
 
-            (x, x_pq), _ = jax.lax.scan(body, (x, x_pq), layers)
+            x, _ = jax.lax.scan(body, x, layers)
         return x
 
     for li, layer in enumerate(layers):
         if layer_keys is not None:
-            x, x_pq = layer_fn(
-                x, x_pq, layer, layer_keys[li, 0], layer_keys[li, 1], layer_keys[li, 2]
+            x = layer_fn(
+                x, layer, layer_keys[li, 0], layer_keys[li, 1], layer_keys[li, 2]
             )
         else:
-            x, x_pq = layer_fn(x, x_pq, layer, None, None, None)
+            x = layer_fn(x, layer, None, None, None)
     return x
 
 
@@ -493,7 +385,6 @@ def encode(
     attention_mask: jax.Array,
     use_mean: bool = False,
     dropout_rng: Optional[jax.Array] = None,
-    trainable: bool = False,
 ) -> jax.Array:
     """Full ANCE embedding: encoder -> pooling -> embeddingHead -> LayerNorm.
 
@@ -501,14 +392,11 @@ def encode(
     (CLS) by default, masked mean when ``use_mean`` (src/models.py:52-61);
     ``doc_emb`` is identical (src/models.py:48-49).  ``dropout_rng``
     activates training-mode dropout (the reference trains the query tower
-    in torch train mode, src/train_HAConvDR_topiocqa.py:125); ``trainable``
-    marks the tower gradients flow through (routes attention to the
-    differentiable flash kernel rather than the inference-only fused one).
+    in torch train mode, src/train_HAConvDR_topiocqa.py:125).
     Returns [B, embedding_dim] float32.
     """
     hidden = encoder_hidden_states(
         params, cfg, input_ids, attention_mask, dropout_rng=dropout_rng,
-        trainable=trainable,
     )
     if use_mean:
         m = attention_mask.astype(jnp.float32)[:, :, None]
@@ -523,9 +411,9 @@ def quantize_encoder_params(params: EncoderParams) -> EncoderParams:
     """int8-quantize the transformer layers' dense kernels (per-output-
     channel symmetric): each dense dict gains ``kernel_scale`` [..., out]
     and its ``kernel`` becomes int8.  ``_dense`` detects the int8 leaf and
-    runs the int8 x int8 MXU path with dynamic per-token activation
-    quantization (2x the bf16 MXU rate on the six dense matmuls per layer
-    — ~90% of encoder FLOPs at L=512).
+    runs an int8 x int8 matmul with dynamic per-token activation
+    quantization on the six dense matmuls per layer (~90% of encoder
+    FLOPs at L=512).
 
     Embeddings, LayerNorms, and the embedding head stay float32: they are
     cheap and quality-sensitive (the head feeds the retrieval embedding

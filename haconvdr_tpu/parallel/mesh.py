@@ -9,7 +9,7 @@ it maps onto one jax.sharding.Mesh:
   * index sharding reuses the flattened mesh as a single ``d`` axis over
     the passage dimension (parallel/sharded_search.py).
 
-Collectives ride ICI via XLA (psum/all_gather inserted by GSPMD); there is
+Collectives are inserted by XLA (psum/all_gather from GSPMD); there is
 no filesystem-based data movement on the compute path.
 """
 

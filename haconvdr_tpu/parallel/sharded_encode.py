@@ -6,7 +6,7 @@ gen_doc_embeddings.py:194-195) and the rank-mod StreamingDataset sharding
 (src/utils.py:126-147) with GSPMD: the batch dimension is sharded over the
 ``dp`` mesh axis and, when ``tp > 1``, encoder weight matrices are sharded
 Megatron-style over ``tp`` (attention heads / FFN hidden dim) — XLA inserts
-the all-reduces over ICI.
+the all-reduces.
 """
 
 from __future__ import annotations

@@ -1,6 +1,6 @@
 """Mesh-sharded IVF serving: the cluster-pruned index at pod scale.
 
-The single-chip IVF index (index/ivf.py) is capacity-limited by one HBM:
+The single-device IVF index (index/ivf.py) is capacity-limited by one card:
 QReCC-54M buckets are ~90 GB bf16 with the build's slack.  Here the bucket
 array is sharded along the CLUSTER axis across the mesh (each device owns
 ``nlist / n_shards`` whole clusters plus a slice of the spill tail) and a
@@ -198,10 +198,8 @@ def _sharded_ivf_search(
 # The build below streams the corpus from disk in blocks, holding at most
 # ONE scatter chunk on the host (default 64k rows = 100 MB f32), and pushes
 # each row directly to its owning shard's device.  Per-shard device peak is
-# its own bucket slab + one chunk, so bf16 buckets fit a v5e-8 (8 x 16 GB =
-# 128 GB) with ~14 GB/shard and int8 fits a v5e-4 — the single-host
-# full-corpus buffer the round-2 serve path used (and its f32-bucket
-# footprint bug) is gone.  Disk is read three times (sample, assign,
+# its own bucket slab + one chunk: bf16 buckets over four 80 GB cards are
+# ~27 GB per shard, and no single-host full-corpus buffer is needed.  Disk is read three times (sample, assign,
 # scatter); all three passes are sequential streaming reads.
 
 
@@ -249,7 +247,7 @@ def build_ivf_from_store(
     by_residual: bool = True,
 ) -> IVFIndex:
     """Mesh-sharded IVF build straight from an EmbeddingBlockStore — the
-    pod-scale replacement for ``index.ivf.build_ivf_device`` (single-HBM)
+    multi-device replacement for ``index.ivf.build_ivf_device`` (one device)
     and for the faiss GPU shard clone it supersedes
     (src/test_HAConvDR_topiocqa.py:55-66).
 

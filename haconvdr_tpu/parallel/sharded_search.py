@@ -1,11 +1,11 @@
 """Cross-device sharded exact top-k search.
 
-TPU-native replacement for faiss's GPU index sharding
+Replacement for faiss's GPU index sharding
 (``GpuMultipleClonerOptions.shard = True``,
 src/test_HAConvDR_topiocqa.py:55-66): the passage-embedding matrix is
 sharded along the passage axis across every device of the mesh; each
-device runs the blocked streaming top-k over its resident shard
-(ops/topk.py) and the per-shard candidate lists are merged ON DEVICE with
+device runs the exact top-k over its resident shard
+(ops/topk.search_block) and the per-shard candidate lists are merged ON DEVICE with
 an ``all_gather`` + ``lax.top_k`` — replacing both faiss's internal
 cross-GPU reduction and the reference's host 2-pointer block merge
 (":131-149").
@@ -21,7 +21,7 @@ import jax.numpy as jnp
 import numpy as np
 from jax.sharding import Mesh, NamedSharding, PartitionSpec as P
 
-from haconvdr_tpu.ops.topk import topk_block
+from haconvdr_tpu.ops.topk import search_block
 
 
 def _flat_mesh(mesh: Mesh) -> Mesh:
@@ -36,18 +36,13 @@ def sharded_topk(
     n_valid: int,  # true passage count before padding
     k: int,
     chunk: int,
-    use_pallas: bool = False,
     scales: Optional[jax.Array] = None,  # [n_shards, D] per-shard dequant
-    kernel: str = "v4",  # pallas kernel: "v4" (window-top-2, fastest
-    # unseeded exact path) or "v3" (fused-insert)
-    interpret: bool = False,  # pallas interpret mode (CPU-mesh tests)
 ) -> Tuple[jax.Array, jax.Array]:
     """Replicated ([Q, k] scores, [Q, k] global offsets) over all shards.
 
     ``scales`` (int8 indexes, index/quantize.py): each shard folds its own
-    per-dim dequantization scale into the replicated queries before
-    scoring: the int8 search scores the dequantized rows (int8 side exact,
-    query side bf16-rounded like the bfloat16 index path)."""
+    per-dim dequantization scale into the replicated queries before they
+    are quantised per query (ops/topk.quantize_queries)."""
     fmesh = _flat_mesh(mesh)
     n_shards = fmesh.devices.size
     Ntot = passages.shape[0]
@@ -61,22 +56,7 @@ def sharded_topk(
             q = q.astype(jnp.float32) * rest[0][shard_id]
         # valid rows in this shard given global n_valid
         local_valid = jnp.clip(n_valid - base, 0, shard_rows)
-        if use_pallas and kernel == "v4":
-            from haconvdr_tpu.ops.pallas_topk_v4 import pallas_topk_block_v4
-
-            s, i = pallas_topk_block_v4(
-                q, p_shard, local_valid.astype(jnp.int32), k,
-                interpret=interpret,
-            )
-        elif use_pallas:
-            from haconvdr_tpu.ops.pallas_topk import pallas_topk_block
-
-            s, i = pallas_topk_block(
-                q, p_shard, local_valid.astype(jnp.int32), k,
-                interpret=interpret,
-            )
-        else:
-            s, i = topk_block(q, p_shard, local_valid.astype(jnp.int32), k, chunk)
+        s, i = search_block(q, p_shard, local_valid.astype(jnp.int32), k, chunk)
         gi = jnp.where(i >= 0, i + base, -1)
         # gather every shard's candidates and reduce on device
         sg = jax.lax.all_gather(s, "d")  # [n_shards, Q, k]
@@ -100,16 +80,16 @@ def sharded_topk(
 
 
 class ShardedIndex:
-    """An HBM-resident, device-sharded flat inner-product index.
+    """A device-resident, device-sharded flat inner-product index.
 
     Equivalent of ``build_faiss_index`` + ``index.add`` for one resident
     block set (src/test_HAConvDR_topiocqa.py:39-71,98): embeddings are
     placed shard-by-shard across the mesh once, then searched many times.
-    For corpora larger than total HBM, callers hold several ShardedIndex
-    blocks and merge results via ops.topk.merge_topk (the BlockSearcher
-    pattern), or shrink the resident bytes with ``dtype="bfloat16"`` (2x)
-    or ``dtype="int8"`` (4x; per-shard scalar quantization scoring the
-    dequantized rows at bf16 query precision — index/quantize.py).
+    For corpora larger than total device memory, callers hold several
+    ShardedIndex blocks and merge results via ops.topk.merge_topk (the
+    BlockSearcher pattern), or shrink the resident bytes with
+    ``dtype="bfloat16"`` (2x) or ``dtype="int8"`` (4x; per-shard scalar
+    quantization, index/quantize.py).
     """
 
     def __init__(
@@ -150,23 +130,15 @@ class ShardedIndex:
             jnp.asarray(embeddings, jnp.dtype(dtype)), sharding
         )
         self.ids = None if ids is None else np.asarray(ids)
-        self.use_pallas = (
-            jax.devices()[0].platform == "tpu" and shard_rows % 2048 == 0
-        )
         self._jits = {}
 
     def _search(self, queries, passages, k):
-        # one jitted program per k (retracing shard_map per call is costly).
-        # k > 128 (rescore-oversampled first stages) routes through the
-        # XLA selection: the pallas kernels are k<=~128 designs — their
-        # insert/flag machinery scales with k (k=500 measured ~20x slower
-        # than the XLA matmul + lax.top_k at 1M x 2048)
+        # one jitted program per k (retracing shard_map per call is costly)
         if k not in self._jits:
             self._jits[k] = jax.jit(
                 functools.partial(
                     sharded_topk, self.mesh, n_valid=self.n_valid,
-                    chunk=self.chunk,
-                    use_pallas=self.use_pallas and k <= 128, k=k,
+                    chunk=self.chunk, k=k,
                 )
             )
         if self.scales is not None:
@@ -186,15 +158,13 @@ class ShardedIndex:
         EmbeddingBlockStore without assembling the corpus on one host
         buffer: each shard's rows are placed on its device as they are cut
         out of the block stream, then stitched into one global jax.Array
-        (the TPU-native replacement for faiss's GpuMultipleClonerOptions
-        shard clone, src/test_HAConvDR_topiocqa.py:54-67).
+        (the replacement for faiss's GpuMultipleClonerOptions shard clone,
+        src/test_HAConvDR_topiocqa.py:54-67).
 
-        Memory plan: a 54M x 768 corpus is 167 GB in f32 — beyond a v5e-8's
-        HBM — but 84 GB in bfloat16, which fits, and 42 GB as an int8
-        index (dtype="int8", index/quantize.py: per-shard per-dim scales;
-        scores the dequantized rows directly), which fits a v5e-4
-        (SURVEY.md SS7 hard part (b)).  f32 corpora that exceed HBM should
-        use the streaming BlockSearcher instead.
+        Memory plan: a 54.6M x 768 corpus is 167.6 GB in f32, 83.8 GB in
+        bfloat16 and 41.9 GB as an int8 index (dtype="int8",
+        index/quantize.py: per-shard per-dim scales).  Corpora that exceed
+        the mesh's device memory use the streaming BlockSearcher instead.
 
         Sizing uses ``store.block_size`` (npy header / embid pickle), so
         each block's embedding matrix is streamed from disk exactly once.
@@ -279,9 +249,6 @@ class ShardedIndex:
         obj.passages = global_arr
         obj.scales = jnp.asarray(np.stack(scales)) if is_int8 else None
         obj.ids = ids_all
-        obj.use_pallas = (
-            _jax.devices()[0].platform == "tpu" and shard_rows % 2048 == 0
-        )
         obj._jits = {}
         return obj
 
@@ -290,13 +257,8 @@ class ShardedIndex:
         an id array was provided, else raw row offsets."""
         Q = queries.shape[0]
         queries = np.asarray(queries)
-        if self.use_pallas and Q % 128 != 0:  # whole query tiles
-            pad = -Q % 128
-            queries = np.concatenate(
-                [queries, np.zeros((pad,) + queries.shape[1:], queries.dtype)]
-            )
         # int8 index: queries stay float (per-shard dequant scales fold in
-        # under the shard_map; the kernels upcast int8 tiles to bf16)
+        # under the shard_map before per-query quantisation)
         q_dtype = jnp.float32 if self.scales is not None else self.passages.dtype
         q = jnp.asarray(queries, q_dtype)
         s, i = self._search(q, self.passages, k)

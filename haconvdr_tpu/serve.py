@@ -3,7 +3,7 @@
 The reference exposes retrieval only through batch evaluation scripts; this
 wraps the same machinery as a reusable object for interactive / production
 use: load a trained ANCE checkpoint + an embedding store once, then answer
-(conversation state -> ranked pids) queries with the fused TPU search path.
+(conversation state -> ranked pids) queries with the exact device search.
 """
 
 from __future__ import annotations
@@ -36,16 +36,17 @@ logger = logging.getLogger(__name__)
 class Retriever:
     """query encoder + index, resident on the mesh.
 
-    ``resident=True`` loads the whole store into device HBM as a
+    ``resident=True`` loads the whole store into device memory as a
     ShardedIndex (fastest exact path; needs the corpus to fit — bf16
     halves it, store_dtype="int8" quarters it); ``resident=False``
     streams blocks per search (BlockSearcher).  ``ivf=True`` REPLACES the
     exact index with the cluster-pruned serving structure, built
     MESH-SHARDED straight from the store at load time
     (parallel/sharded_ivf.py:build_ivf_from_store — cluster-axis bucket
-    layout, no single-host corpus buffer, capacity scales with pod HBM):
-    ~4.6x lower single-query latency at an nprobe-controlled recall
-    (beyond the reference, which only has the exact scan).
+    layout, no single-host corpus buffer, capacity scales with the
+    mesh's device memory): a single query reads only the probed clusters,
+    at an nprobe-controlled recall (beyond the reference, which only has
+    the exact scan).
     ``store_dtype`` applies to the IVF buckets too ("int8" builds
     quantized buckets).  ``ivf_dir`` persists the built index as
     per-shard artifacts (parallel/sharded_ivf.save_ivf_sharded) and
@@ -54,17 +55,13 @@ class Retriever:
     second Retriever without ``ivf`` when exact batch evaluation is also
     needed.
 
-    **IVF is the LATENCY tier, not the throughput tier** (measured,
-    BENCH_ALL_r04 rows ivf-batch/ivf-batch-int8 at 2.5M): its per-query
+    **IVF is the LATENCY tier, not the throughput tier**: its per-query
     probed-bucket gathers do not coalesce across a batch (lax.map one
-    query at a time), so it plateaus at ~1.5k QPS regardless of batch
-    size, while the flat scan's matmul amortizes the corpus stream over
-    the whole batch — 5.5k QPS at B=64 and 37k (bf16) / 57k (int8) at
-    B=2048.  The crossover is at B~8: below it IVF's ~1 ms single-query
-    latency wins; at B>=16 the exact flat scan is both faster AND exact.
-    Composing ``ivf=True`` with ``BatchingRetriever`` at ``max_batch`` >
-    16 therefore costs throughput for no latency benefit —
-    BatchingRetriever warns on that composition.
+    query at a time), while the flat scan's matmul amortizes one read of
+    the corpus over the whole batch.  Composing ``ivf=True`` with
+    ``BatchingRetriever`` at ``max_batch`` > 16 therefore trades
+    throughput for no latency benefit — BatchingRetriever warns on that
+    composition.  (Where the two cross on the card is not measured.)
     """
 
     def __init__(
@@ -90,15 +87,9 @@ class Retriever:
         self.search_cfg = search_cfg or SearchConfig()
         self.mesh = make_mesh()
         if encoder_int8:
-            # int8 x int8 MXU query-tower weights (the serving-side
-            # analog of IndexConfig.compute_int8): measured ~1.2x faster
-            # forwards at batch >= 8 — the BatchingRetriever tier — but
-            # ~0.4 ms SLOWER at B=1 (per-op fixed costs dominate the
-            # B=1 forward; probes/probe_encode_b1.py), so leave it off
-            # for single-stream latency serving.  Quality: query
-            # embeddings drift cos > 0.9999 vs the bf16 tower; top-100
-            # overlap 0.994 on the worst-case rank-3.4 real-encoder
-            # manifold (probes/probe_tower_int8_recall.py).
+            # int8 x int8 query-tower weights (the serving-side analog
+            # of IndexConfig.compute_int8): an approximation of the
+            # float tower, for batched serving
             from haconvdr_tpu.models.encoder import quantize_encoder_params
 
             params = quantize_encoder_params(params)
@@ -177,9 +168,8 @@ class Retriever:
 
             # mesh-sharded build straight from the store: rows stream from
             # disk to their owning shard's device — no single-host corpus
-            # buffer, so capacity is the POD's HBM, not one chip's (54M
-            # bf16 buckets ≈ 109 GB fit a v5e-8; int8 a v5e-4 — memory
-            # math in parallel/sharded_ivf.py).  store_dtype carries
+            # buffer, so capacity is the mesh's device memory, not one
+            # card's (memory math in parallel/sharded_ivf.py).  store_dtype carries
             # through: "int8" builds quantized buckets (a global per-dim
             # scale folded into queries at search), not silently-f32 ones.
             n_blocks = store.num_blocks()
@@ -359,22 +349,20 @@ class BacklogFull(RuntimeError):
 class BatchingRetriever:
     """Micro-batching serving frontend over a :class:`Retriever`.
 
-    Measured motivation (BASELINE.md BENCH_E2E): single-stream serving is
-    ENCODER-bound — at B=1 the 12L query forward is 3.56 ms vs 3.30 ms for
-    the int8 search over 2.5M resident — while the encoder is batch-flat to
-    B=512+.  Coalescing concurrent queries into one device dispatch
-    therefore multiplies throughput at nearly constant per-query latency;
-    this class is that coalescer.  (The reference has no serving layer at
+    Motivation: a single query pays a whole query-tower forward and a
+    whole read of the index; coalescing concurrent queries into one device
+    dispatch shares both across the batch, so throughput grows with the
+    batch at nearly constant per-query latency; this class is that
+    coalescer.  (The reference has no serving layer at
     all — retrieval exists only as offline batch-eval scripts,
     /root/reference/src/test_HAConvDR_topiocqa.py — so this is
     beyond-reference surface, like Retriever itself.)
 
-    Design, TPU-first:
+    Design:
 
-    * ONE worker thread owns all device dispatch (two concurrent TPU
-      dispatch streams corrupt each other's timing and contend for the
-      single chip — NOTES.md environment constraints), so callers may
-      submit from any number of threads.
+    * ONE worker thread owns all device dispatch (two concurrent dispatch
+      streams contend for the card and spoil each other's timing), so
+      callers may submit from any number of threads.
     * Static shapes: a coalesced batch of n requests runs at the smallest
       power-of-two bucket >= n (capped at ``max_batch``), so XLA compiles
       once per bucket instead of once per arrival count.  Encoder padding
@@ -403,16 +391,13 @@ class BatchingRetriever:
         if max_batch < 1:
             raise ValueError("max_batch must be >= 1")
         if retriever.ivf_index is not None and max_batch > 16:
-            # measured crossover (BENCH_ALL_r04 ivf-batch rows): IVF's
-            # per-query bucket gathers plateau ~1.5k QPS regardless of
-            # batch while the exact flat scan reaches 5.5k at B=64 and
-            # 37-57k at B=2048 — coalescing IVF wastes the batch.  See
-            # the Retriever docstring ("latency tier").
+            # IVF's per-query bucket gathers do not share work across a
+            # batch — see the Retriever docstring ("latency tier")
             logger.warning(
                 "BatchingRetriever(max_batch=%d) over an IVF retriever: "
-                "IVF search does not coalesce across a batch (~1.5k QPS "
-                "plateau); at batch >= 16 the exact flat index is faster "
-                "AND exact.  Use ivf=False for the throughput tier.",
+                "IVF search does not coalesce across a batch; the exact "
+                "flat index shares one scan over the batch.  Use "
+                "ivf=False for the throughput tier.",
                 max_batch,
             )
         self.retriever = retriever

@@ -6,9 +6,8 @@ a reusable object and `serve.BatchingRetriever` a coalescing frontend —
 this module is the network face: a stdlib-only (zero new dependencies)
 threaded HTTP server whose request threads block on the batcher's
 futures, so CONCURRENT HTTP CLIENTS ARE WHAT FORMS THE DEVICE BATCHES.
-One TPU dispatch stream (the batcher's worker thread) serves any number
-of connections; measured on-chip the coalesced path is 8.9x the
-single-stream rate (BASELINE.md BENCH_E2E_BATCH: 1,295 QPS at B=64).
+One device dispatch stream (the batcher's worker thread) serves any number
+of connections.
 
 API (all JSON):
 

@@ -26,6 +26,8 @@ from typing import Optional
 import jax
 import jax.numpy as jnp
 
+from haconvdr_tpu.ops import backend
+
 _NEG = -1e9
 
 
@@ -47,6 +49,11 @@ def _mask_invalid_columns(pos_scores: jax.Array, valid: jax.Array) -> jax.Array:
     return jnp.where(col_ok | eye, pos_scores, _NEG)
 
 
+def _scores(a: jax.Array, b: jax.Array) -> jax.Array:
+    """[B, B] inner products at the dtype's precision (f32: HIGHEST)."""
+    return jnp.matmul(a, b.T, precision=backend.matmul_precision(a.dtype))
+
+
 def ranking_loss(
     query_embs: jax.Array,  # [B, D]
     pos_doc_embs: jax.Array,  # [B, D]
@@ -56,11 +63,14 @@ def ranking_loss(
 ) -> jax.Array:
     B = query_embs.shape[0]
     valid = jnp.ones((B,), jnp.int32) if valid is None else valid
-    pos_scores = query_embs @ pos_doc_embs.T  # [B, B]
+    pos_scores = _scores(query_embs, pos_doc_embs)  # [B, B]
     score_mat = _mask_invalid_columns(pos_scores, valid)
     if neg_doc_embs is not None:
         if neg_doc_embs.ndim == 3:  # R negatives per example (Retrieval_qrecc_negs)
-            neg_scores = jnp.einsum("bd,brd->br", query_embs, neg_doc_embs)
+            neg_scores = jnp.einsum(
+                "bd,brd->br", query_embs, neg_doc_embs,
+                precision=backend.matmul_precision(query_embs.dtype),
+            )
             if neg_valid is not None:
                 # rows clamped/padded to a static R: padded slots leave the
                 # softmax entirely
@@ -86,10 +96,10 @@ def ranking_loss_prepos(
 ) -> jax.Array:
     B = query_embs.shape[0]
     valid = jnp.ones((B,), jnp.int32) if valid is None else valid
-    pos_scores = query_embs @ pos_doc_embs.T  # [B, B]
+    pos_scores = _scores(query_embs, pos_doc_embs)  # [B, B]
     score_mat = pos_scores
     if is_pseudo_prepos and pseudo_prepos_embs is not None:
-        pseudo_scores = query_embs @ pseudo_prepos_embs.T  # [B, B] (":65-66")
+        pseudo_scores = _scores(query_embs, pseudo_prepos_embs)  # [B, B] (":65-66")
         if has_pseudo is not None:
             pseudo_scores = pseudo_scores * has_pseudo.astype(jnp.float32)[None, :]
         score_mat = pos_scores + alpha * pseudo_scores

@@ -1,7 +1,7 @@
 """Contrastive training step + host loop, jit/pjit over a device mesh.
 
 Rebuilds the reference training loop (src/train_HAConvDR_topiocqa.py:81-208,
-train_HAConvDR_qrecc.py) TPU-first:
+train_HAConvDR_qrecc.py):
 
   * trainable query tower + FROZEN passage tower — frozen params live
     outside the grad computation and passage embeddings pass through
@@ -118,8 +118,8 @@ def make_train_step(
     data_sharding = NamedSharding(mesh, P("dp", None))
     K = train_cfg.accumulation_steps
     # frozen towers: no grads flow (stop_gradient + zero-tangent params),
-    # so they may run a faster compute dtype + the fused inference
-    # attention kernel without touching the trained tower's numerics
+    # so they may run a faster compute dtype (and cuDNN attention in bf16)
+    # without touching the trained tower's numerics
     frozen_cfg = model_cfg
     if train_cfg.frozen_dtype and train_cfg.frozen_dtype != model_cfg.dtype:
         import dataclasses
@@ -143,7 +143,7 @@ def make_train_step(
         # mode (":126", passage_encoder.eval())
         q = encode(
             params, model_cfg, batch[query_key], batch[f"{query_key}_mask"],
-            dropout_rng=dropout_rng, trainable=True,
+            dropout_rng=dropout_rng,
         )
         sg = jax.lax.stop_gradient
 

@@ -1,28 +1,35 @@
 """Persistent XLA compilation cache.
 
-Remote/first-time compiles of the large jitted programs (train step,
-encoder, search kernels) cost tens of seconds to minutes; the persistent
-cache makes every CLI invocation after the first start instantly.
+Compiling the large jitted programs (train step, encoder, search) takes
+tens of seconds to minutes; the persistent cache lets every run after the
+first reuse them.  ``JAX_COMPILATION_CACHE_DIR``, when set, wins: JAX reads
+it itself and nothing here overrides it.  Otherwise the cache lives at the
+fixed path ``<checkout>/.jax_cache`` (listed in .gitignore) — a fixed path,
+because the directory is part of what makes a later run find the entries.
 """
 
 from __future__ import annotations
 
-import logging
 import os
 
-logger = logging.getLogger(__name__)
+CHECKOUT_CACHE_DIR = os.path.join(
+    os.path.dirname(os.path.dirname(os.path.dirname(os.path.abspath(__file__)))),
+    ".jax_cache",
+)
 
 
-def enable_compilation_cache(cache_dir: str = "") -> None:
+def compilation_cache_dir() -> str:
+    return os.environ.get("JAX_COMPILATION_CACHE_DIR") or CHECKOUT_CACHE_DIR
+
+
+def enable_compilation_cache() -> str:
+    """Point JAX's persistent compilation cache at
+    :func:`compilation_cache_dir` and return that directory."""
     import jax
 
-    cache_dir = cache_dir or os.environ.get(
-        "HACONVDR_CACHE_DIR",
-        os.path.join(os.path.expanduser("~"), ".cache", "haconvdr_tpu_xla"),
-    )
-    try:
+    cache_dir = compilation_cache_dir()
+    if not os.environ.get("JAX_COMPILATION_CACHE_DIR"):
         os.makedirs(cache_dir, exist_ok=True)
         jax.config.update("jax_compilation_cache_dir", cache_dir)
-        jax.config.update("jax_persistent_cache_min_compile_time_secs", 1.0)
-    except Exception as e:  # pragma: no cover
-        logger.warning("compilation cache unavailable: %s", e)
+    jax.config.update("jax_persistent_cache_min_compile_time_secs", 1.0)
+    return cache_dir

@@ -1,6 +1,6 @@
 // Native BM25 scoring core.
 //
-// TPU-native stack note: sparse retrieval is offline/host-side in this
+// Sparse retrieval is offline/host-side in this
 // framework (hard-negative mining only), so the Lucene/pyserini dependency
 // of the reference (bm25/bm25_topiocqa.py:17,152-154) is replaced by this
 // self-contained C++ engine: a CSR inverted index plus a multithreaded

@@ -3,7 +3,7 @@
 L0 preprocess -> PRJ probes -> (labels) -> BM25 mining CLI -> negative
 merges -> reformulate -> training dataset builder, all on a synthetic
 TopiOCQA-shaped dump — the reference README's pipeline order
-(/root/reference/README.md:15-98) end to end, minus the TPU passes covered
+(/root/reference/README.md:15-98) end to end, minus the device passes covered
 by test_e2e.
 """
 

@@ -59,7 +59,7 @@ def test_remat_union_override():
     assert load_config(None, ["model.remat=mlp"]).model.remat == "mlp"
     # strict-bool fields still reject arbitrary strings
     with pytest.raises(ValueError):
-        load_config(None, ["model.use_flash_attention=mlp"])
+        load_config(None, ["train.is_prepos_neg=mlp"])
 
 
 def test_config_from_argv():

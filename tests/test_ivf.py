@@ -577,8 +577,8 @@ def test_ivf_sweep_overflow_row(rng, tmp_path):
 
 def test_ivf_geometry_check_cli(tmp_path):
     """End-to-end geometry harness on a toy encoder: trains a step,
-    embeds, emits a geometry preamble + sweep rows (VERDICT r2 weak #5
-    proxy — real-encoder-manifold IVF recall)."""
+    embeds, emits a geometry preamble + sweep rows (the proxy for
+    real-encoder-manifold IVF recall)."""
     from haconvdr_tpu.cli.ivf_geometry_check import main as geo_main
 
     out = tmp_path / "geo.jsonl"

@@ -1,5 +1,7 @@
 """PRJ mining and BM25 engine tests."""
 
+import os
+
 import numpy as np
 import pytest
 
@@ -215,6 +217,25 @@ def test_bm25_native_and_fallback_agree(monkeypatch):
     docs_p, scores_p = idx2.batch_search(["cat dog", "quantum"], k=3)
     np.testing.assert_array_equal(docs_n, docs_p)
     np.testing.assert_allclose(scores_n, scores_p, rtol=1e-5)
+
+
+def test_bm25_native_library_keyed_on_source_and_host(monkeypatch, tmp_path):
+    """The library is built from the committed source into build/, under
+    a name keyed on the source, the flags and the host: a library built
+    elsewhere, or from another source, is never loaded."""
+    import haconvdr_tpu.mine.bm25 as m
+
+    so = m._so_path()
+    assert os.path.dirname(so) == m._BUILD_DIR
+    with monkeypatch.context() as mp:
+        src = tmp_path / "bm25.cpp"
+        src.write_bytes(open(m._SRC_PATH, "rb").read() + b"\n// changed\n")
+        mp.setattr(m, "_SRC_PATH", str(src))
+        assert m._so_path() != so
+    with monkeypatch.context() as mp:
+        mp.setattr(m.platform, "uname", lambda: ("Linux", "other", "6", "", "x86_64", ""))
+        assert m._so_path() != so
+    assert m._so_path() == so
 
 
 def test_bm25_save_load(tmp_path):

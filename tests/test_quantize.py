@@ -27,16 +27,14 @@ def test_quantize_roundtrip_bound(rng):
 
 def _deq_oracle_scores(q, int8_rows, scale):
     """The exact arithmetic the int8 search path performs: queries folded
-    with the scale in f32, cast to bf16 at the matmul, int8 tiles upcast
-    to bf16 (exact: |v| <= 127), f32 accumulation."""
-    qf = (q.astype(np.float32) * scale[None, :]).astype(jnp.bfloat16)
-    return np.asarray(
-        jnp.dot(
-            qf.astype(jnp.float32),
-            jnp.asarray(int8_rows, jnp.float32).T,
-            preferred_element_type=jnp.float32,
-        )
-    )
+    with the per-dim scale in f32, quantised per query to symmetric int8,
+    int8 x int8 products summed exactly (an integer below 2**24, so the
+    float64 sum here is exact), times the query scale / 127 in f32."""
+    qf = q.astype(np.float32) * scale[None, :]
+    qs = np.maximum(np.abs(qf).max(axis=1), np.float32(1e-30))
+    codes = np.clip(np.round(qf / qs[:, None] * np.float32(127.0)), -127, 127)
+    ints = codes.astype(np.float64) @ np.asarray(int8_rows, np.float64).T
+    return ints.astype(np.float32) * (qs / np.float32(127.0))[:, None]
 
 
 def test_topk_block_int8_matches_dequantized_oracle(rng):
@@ -139,11 +137,11 @@ def test_block_size_pickle_format(rng, tmp_path):
     assert store.block_size(0) == 42
 
 
-def test_streaming_int8_blocks_match_dequantized_oracle(rng):
+def test_streaming_int8_blocks_match_dequantized_oracle(rng, monkeypatch):
     """BlockSearcher over int8 blocks (scale as the third tuple element):
     per-block scale folding must reproduce the dequantized-oracle ranking,
-    on both the XLA scan path and the pallas kernel (interpret)."""
-    from haconvdr_tpu.ops.pallas_topk import pallas_topk_block
+    on both the plain scan path and the fused kernel (interpreted)."""
+    from haconvdr_tpu.ops import backend
     from haconvdr_tpu.ops.topk import BlockSearcher
 
     Q, D, k = 16, 16, 8
@@ -159,21 +157,14 @@ def test_streaming_int8_blocks_match_dequantized_oracle(rng):
     full = np.concatenate(deq_scores, axis=1)
     ref_s, ref_i = jax.lax.top_k(jnp.asarray(full), k)
 
-    xla = BlockSearcher(top_k=k, passage_chunk=64, use_pallas=False)
+    xla = BlockSearcher(top_k=k, passage_chunk=64)
     s1, i1 = xla.search(queries, list(blocks))
     np.testing.assert_allclose(s1, np.asarray(ref_s), rtol=1e-5)
     np.testing.assert_array_equal(i1, np.asarray(ref_i))
 
-    pal = BlockSearcher(top_k=k, query_chunk=128, use_pallas=True)
-
-    def fake_block(qq, pp, nv, init_scores=None):
-        return pallas_topk_block(
-            qq, pp, jnp.int32(nv), k, q_tile=16, p_tile=128,
-            init_scores=init_scores, interpret=True,
-        )
-
-    pal._block_topk = fake_block
-    s2, i2 = pal.search(queries, list(blocks))
+    monkeypatch.setattr(backend, "search_impl", lambda *a: "fused")
+    fused = BlockSearcher(top_k=k, passage_chunk=64)
+    s2, i2 = fused.search(queries, list(blocks))
     np.testing.assert_allclose(s2, np.asarray(ref_s), rtol=1e-5)
     np.testing.assert_array_equal(i2, np.asarray(ref_i))
 
@@ -227,7 +218,7 @@ def test_encode_corpus_int8_store_roundtrip(tmp_path, rng):
 
     # raw int8 streaming search agrees with the float store's ranking
     q = rng.randn(3, emb.shape[1]).astype(np.float32)
-    searcher = BlockSearcher(top_k=5, passage_chunk=8, use_pallas=False)
+    searcher = BlockSearcher(top_k=5, passage_chunk=8)
     s_q, i_q = searcher.search(q, store.iter_blocks(with_scales=True))
     s_f, i_f = searcher.search(q, f32_store.iter_blocks())
     overlap = np.mean([len(set(i_q[r]) & set(i_f[r])) / 5 for r in range(3)])

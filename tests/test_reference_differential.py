@@ -301,7 +301,7 @@ def test_trec_run_matches_reference_semantics(ref_modules, ckpt, tmp_path):
     from haconvdr_tpu.eval.trec import dedup_ranked_candidates, write_run
     from haconvdr_tpu.ops.topk import BlockSearcher
 
-    searcher = BlockSearcher(top_k=top_k, passage_chunk=8, use_pallas=False)
+    searcher = BlockSearcher(top_k=top_k, passage_chunk=8)
     s2, i2 = searcher.search(q, [(p, np.arange(len(pids), dtype=np.int64))])
     ranked = dedup_ranked_candidates(qids, s2, i2, offset2pid, top_k)
     ours_file = tmp_path / "ours.trec"
@@ -1713,7 +1713,7 @@ def test_chained_pipeline_matches_reference(
             jnp.asarray(np.asarray([e["pair_query"] for e in examples])),
             jnp.asarray(np.asarray([e["pair_query_mask"] for e in examples])),
         ))
-        searcher = BlockSearcher(top_k=len(pids), passage_chunk=8, use_pallas=False)
+        searcher = BlockSearcher(top_k=len(pids), passage_chunk=8)
         s_, i_ = searcher.search(
             q_emb.astype(np.float32),
             [(corpus_emb.astype(np.float32), np.asarray(pids, np.int64))],
@@ -1921,7 +1921,7 @@ def test_chained_pipeline_matches_reference(
 
     run_files = {}
     for name, q_emb in (("ref", ref_q), ("ours", our_q)):
-        searcher = BlockSearcher(top_k=len(pids), passage_chunk=8, use_pallas=False)
+        searcher = BlockSearcher(top_k=len(pids), passage_chunk=8)
         s_, i_ = searcher.search(
             q_emb.astype(np.float32),
             [(corpus_emb.astype(np.float32), np.asarray(pids, np.int64))],
@@ -2178,7 +2178,7 @@ def test_chained_qrecc_pipeline_matches_reference(
             jnp.asarray(np.asarray([e["pair_query"] for e in examples])),
             jnp.asarray(np.asarray([e["pair_query_mask"] for e in examples])),
         ))
-        searcher = BlockSearcher(top_k=len(pids), passage_chunk=8, use_pallas=False)
+        searcher = BlockSearcher(top_k=len(pids), passage_chunk=8)
         s_, i_ = searcher.search(
             q_emb.astype(np.float32),
             [(corpus_emb.astype(np.float32), np.asarray(pids, np.int64))],
@@ -2386,7 +2386,7 @@ def test_chained_qrecc_pipeline_matches_reference(
 
     run_files = {}
     for name, q_emb in (("ref", ref_q), ("ours", our_q)):
-        searcher = BlockSearcher(top_k=len(pids), passage_chunk=8, use_pallas=False)
+        searcher = BlockSearcher(top_k=len(pids), passage_chunk=8)
         s_, i_ = searcher.search(
             q_emb.astype(np.float32),
             [(corpus_emb.astype(np.float32), np.asarray(pids, np.int64))],

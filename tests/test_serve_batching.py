@@ -235,11 +235,10 @@ def test_close_dispatches_requests_accepted_before_flag(retriever):
 
 
 def test_ivf_composition_warns_above_crossover(retriever, caplog):
-    """Coalescing an IVF retriever past the measured B~8-16 crossover
-    (BENCH_ALL_r04 ivf-batch rows: IVF plateaus ~1.5k QPS while the flat
-    scan reaches 37-57k at batch) is a documented anti-pattern — the
-    constructor must say so, and must stay silent for the flat index or
-    latency-tier batch sizes."""
+    """Coalescing an IVF retriever past batch 16 is a documented
+    anti-pattern (IVF's per-query bucket gathers do not share work across
+    a batch) — the constructor must say so, and must stay silent for the
+    flat index or latency-tier batch sizes."""
     import logging
 
     sentinel = object()  # only `is not None` is consulted

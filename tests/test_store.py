@@ -112,7 +112,7 @@ def test_bfloat16_block_store_roundtrip(tmp_path, rng):
     import jax.numpy as jnp
 
     q = rng.randn(3, 8).astype(np.float32)
-    s, got = BlockSearcher(top_k=5, passage_chunk=8, use_pallas=False).search(
+    s, got = BlockSearcher(top_k=5, passage_chunk=8).search(
         q, store.iter_blocks()
     )
     ref_s, ref_i = exact_topk_oracle(

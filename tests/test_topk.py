@@ -118,10 +118,10 @@ def test_block_searcher_multi_block_dispatch(rng):
         ids.append(np.arange(base, base + n, dtype=np.int64))
         base += n
 
-    single = BlockSearcher(top_k=k, passage_chunk=128, use_pallas=False)
+    single = BlockSearcher(top_k=k, passage_chunk=128)
     s1, i1 = single.search(q, list(zip(blocks_np, ids)))
     multi = BlockSearcher(
-        top_k=k, passage_chunk=128, use_pallas=False, blocks_per_dispatch=3
+        top_k=k, passage_chunk=128, blocks_per_dispatch=3
     )
     s2, i2 = multi.search(q, list(zip(blocks_np, ids)))
     np.testing.assert_array_equal(s1, s2)
@@ -156,7 +156,7 @@ def test_block_searcher_repeated_searches_independent(rng):
     from haconvdr_tpu.ops.topk import exact_topk_oracle
 
     k = 7
-    searcher = BlockSearcher(top_k=k, passage_chunk=64, use_pallas=False)
+    searcher = BlockSearcher(top_k=k, passage_chunk=64)
     q = rng.randn(12, 16).astype(np.float32)
     p1 = rng.randn(300, 16).astype(np.float32)
     p2 = rng.randn(200, 16).astype(np.float32)
@@ -191,7 +191,7 @@ def test_block_searcher_superblock_matches_oracle(rng):
     q = rng.randn(10, D).astype(np.float32)
 
     sb = BlockSearcher(
-        top_k=k, passage_chunk=64, use_pallas=False, superblock_rows=C
+        top_k=k, passage_chunk=64, superblock_rows=C
     )
     s, i = sb.search(q, list(blocks))
     rs, ri = exact_topk_oracle(jnp.asarray(q), jnp.asarray(full), k)
@@ -229,7 +229,7 @@ def test_block_searcher_superblock_int8_dequantized(rng):
     full = np.concatenate(deq)
 
     sb = BlockSearcher(
-        top_k=k, passage_chunk=32, use_pallas=False, superblock_rows=C
+        top_k=k, passage_chunk=32, superblock_rows=C
     )
     s, i = sb.search(q, list(blocks))
     rs, ri = exact_topk_oracle(jnp.asarray(q), jnp.asarray(full), k)
@@ -247,9 +247,9 @@ def test_block_searcher_superblock_int8_accumulator(rng):
     """superblock_dtype='int8': blocks requantize into an int8
     accumulator at the corpus-level scale (store.global_scale semantics)
     and each filled buffer is searched with the scale folded into the
-    queries.  On the XLA path this scores bf16(q*gscale) @ codes — the
-    test replicates that model exactly; ids must match the replicated
-    model's top-k and scores its values."""
+    queries, which are then quantised per query: int8(q*gscale) @ codes
+    in exact integers — the test replicates that model exactly; ids must
+    match the replicated model's top-k and scores its values."""
     import jax
     import jax.numpy as jnp
 
@@ -277,14 +277,18 @@ def test_block_searcher_superblock_int8_accumulator(rng):
     q = rng.randn(9, D).astype(np.float32)
 
     sb = BlockSearcher(
-        top_k=k, passage_chunk=32, use_pallas=False,
+        top_k=k, passage_chunk=32,
         superblock_rows=C, superblock_dtype="int8", superblock_scale=gscale,
     )
     s, i = sb.search(q, list(blocks))
-    # replicate the XLA scoring model: bf16(q*gscale) @ bf16(codes), f32 acc
-    qf = jnp.asarray(q * gscale[None, :], jnp.bfloat16).astype(jnp.float32)
-    full = jnp.dot(qf, jnp.asarray(codes_all, jnp.float32).T)
-    rs, ri = jax.lax.top_k(full, k)
+    # replicate the scoring model: per-query int8 codes of q*gscale times
+    # the corpus codes, summed exactly, scaled by the query scale / 127
+    qf = (q * gscale[None, :]).astype(np.float32)
+    qs = np.abs(qf).max(axis=1)
+    qc = np.clip(np.round(qf / qs[:, None] * np.float32(127.0)), -127, 127)
+    ints = qc.astype(np.float64) @ codes_all.astype(np.float64).T
+    full = ints.astype(np.float32) * (qs / np.float32(127.0))[:, None]
+    rs, ri = jax.lax.top_k(jnp.asarray(full), k)
     np.testing.assert_allclose(s, np.asarray(rs), rtol=1e-5)
     np.testing.assert_array_equal(i, ids_all[np.asarray(ri)])
 
@@ -292,7 +296,7 @@ def test_block_searcher_superblock_int8_accumulator(rng):
     import pytest
 
     bad = BlockSearcher(
-        top_k=k, passage_chunk=32, use_pallas=False,
+        top_k=k, passage_chunk=32,
         superblock_rows=C, superblock_dtype="int8",
     )
     with pytest.raises(ValueError, match="superblock_scale"):
